@@ -4,9 +4,8 @@ The port's own copy of the reference package's ``config/run.py`` (only the
 serve half; training, mesh and offload configs come with later slices).
 Fields nothing in the port reads yet come with the slice that reads them
 (disaggregation, the cluster, the drafter, the snapshot pool); the fields
-of features the port rejects (int8 pages, the cold tier, speculative
-decoding, engine modes) are kept so a caller hears which ROADMAP item is
-missing.
+of features the port rejects (speculative decoding, engine modes) are kept
+so a caller hears which ROADMAP item is missing.
 """
 from __future__ import annotations
 
@@ -46,9 +45,9 @@ class ServeConfig:
     num_pages: int = 0               # pool size; 0 -> full residency for
     #                                  every slot (max_batch * pages_per_seq)
     prefix_cache: bool = True        # hash-keyed prefix page sharing (CoW)
-    kv_quant: str = "none"           # "none" | "int8" (int8: ROADMAP Q1)
+    kv_quant: str = "none"           # "none" | "int8" (per-entry/head scales)
     cold_pages: int = 256            # host-tier spill capacity; 0 disables
-    #                                  the tiered-memory plane (ROADMAP Q2)
+    #                                  the tiered-memory plane
     speculative: bool = False        # speculative decoding (ROADMAP Q4)
     # Engine selection (EngineMode): "" -> "continuous".
     engine_mode: str = ""

@@ -1,13 +1,17 @@
 """Background sidecar executor — paper G2 as infrastructure.
 
 The port's copy of the reference's ``core/executor.py``.  Runs
-latency-insensitive work (result records, engine stats) on host threads so
-the device step loop never blocks.  The reference stages device arrays to
-the host on the worker with ``jax.device_get``; the port's callers hand over
-host values (the spill path, which needs device staging, is ROADMAP Q2).
-Properties the paper's doctrine requires:
+latency-insensitive work (result records, engine stats, cold-tier page
+staging) on host threads so the device step loop never blocks.  Properties
+the paper's doctrine requires:
 
-  * **Non-blocking submit**: the task's arguments go to the worker as given.
+  * **Non-blocking submit** with device->host staging inside the worker:
+    the caller hands over CUDA tensors it will not write again (the spill
+    path's fresh page copies, enqueued on the current stream) and returns
+    at once; the worker copies each into pinned host memory with
+    ``non_blocking=True``, records a CUDA event after the copies and waits
+    on that event on its own thread, then calls the task with the host
+    tensors.  Nothing synchronizes the caller's thread.
   * **Bounded queue + backpressure policy** — an overloaded sidecar must not
     grow unbounded (the cost model's G2-overload case); policies: "block"
     (checkpoints — correctness), "drop_oldest" (metrics — lossy ok).
@@ -25,7 +29,31 @@ import time
 import traceback
 from typing import Any, Callable, Dict, List, Optional
 
+import torch
+
 from repro_torch.runtime.locks import make_condition, make_lock
+
+
+def _stage_to_host(args: tuple) -> tuple:
+    """Worker half of the staging contract: every CUDA tensor in ``args``
+    becomes a pinned host copy, complete when this returns; other arguments
+    pass through unchanged.  The copies go to this thread's current stream
+    of the tensors' device, the default stream the engine's programs run
+    on, so they follow the work that produced the tensors; one event after
+    the last copy is waited on here."""
+    out = []
+    device = None
+    for a in args:
+        if isinstance(a, torch.Tensor) and a.is_cuda:
+            host = torch.empty(a.shape, dtype=a.dtype, pin_memory=True)
+            host.copy_(a, non_blocking=True)
+            device, a = a.device, host
+        out.append(a)
+    if device is not None:
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(device))
+        done.synchronize()
+    return tuple(out)
 
 
 @dataclasses.dataclass
@@ -89,7 +117,8 @@ class BackgroundExecutor:
 
     # -- submission -----------------------------------------------------------
     def submit(self, name: str, fn: Callable, *args: Any) -> _Task:
-        """Non-blocking (subject to backpressure policy)."""
+        """Non-blocking (subject to backpressure policy).  ``args`` may be
+        CUDA tensors — host staging happens on the worker thread."""
         task = _Task(name, fn, args, self.max_retries)
         with self._cv:
             rejected = self._stop.is_set()
@@ -145,14 +174,20 @@ class BackgroundExecutor:
             except queue.Empty:
                 continue
             task.record.started_at = time.time()
-            for attempt in range(task.max_retries + 1):
-                try:
-                    task.result = task.fn(*task.args)
-                    task.record.error = None
-                    break
-                except Exception as e:
-                    task.record.error = f"{type(e).__name__}: {e}"
-                    task.record.retries = attempt
+            host_args = ()
+            try:
+                host_args = _stage_to_host(task.args)
+            except Exception as e:  # staging failure
+                task.record.error = f"staging: {e}"
+            if task.record.error is None:
+                for attempt in range(task.max_retries + 1):
+                    try:
+                        task.result = task.fn(*host_args)
+                        task.record.error = None
+                        break
+                    except Exception as e:
+                        task.record.error = f"{type(e).__name__}: {e}"
+                        task.record.retries = attempt
             task.record.finished_at = time.time()
             task.done.set()
             with self._lock:

@@ -6,8 +6,9 @@ continuous or paged engine, on the card by default.
 
 Weights are random, drawn from ``--seed``.  ``--device cpu`` runs on the
 CPU (with the kernels' plain versions); without it the run needs a GPU.
-The cold tier is not ported, so the paged engine runs with
-``cold_pages=0``.
+``--kv-quant int8`` stores the paged engine's KV pages as int8 with f32
+scales; the paged engine spills evicted prefix pages to the host-memory
+cold tier (``ServeConfig.cold_pages``) as the reference does.
 """
 from __future__ import annotations
 
@@ -38,6 +39,8 @@ def main() -> None:
     ap.add_argument("--num-pages", type=int, default=0,
                     help="KV pool pages (0 -> full residency per slot)")
     ap.add_argument("--no-prefix-cache", action="store_true")
+    ap.add_argument("--kv-quant", default="none", choices=["none", "int8"],
+                    help="KV page storage (int8: per-entry/head scales)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda)")
     args = ap.parse_args()
@@ -47,8 +50,8 @@ def main() -> None:
     scfg = ServeConfig(max_batch=args.max_batch, max_seq_len=args.max_seq_len,
                        temperature=args.temperature, seed=args.seed,
                        page_size=args.page_size, num_pages=args.num_pages,
-                       prefix_cache=not args.no_prefix_cache, cold_pages=0,
-                       engine_mode=args.engine_mode)
+                       prefix_cache=not args.no_prefix_cache,
+                       kv_quant=args.kv_quant, engine_mode=args.engine_mode)
     eng = make_engine(cfg, model, scfg, ExecPolicy())
 
     rng = np.random.default_rng(args.seed)

@@ -7,14 +7,16 @@ Cache layout (per self-attention layer):
 
 Paged layout (per layer, shared by every slot):
   {"kp": (P, page, J, N), "vp": (P, page, J, N)}
+plus, for int8 pages, per-(entry, head) f32 scales
+  {"ksc": (P, page, J), "vsc": (P, page, J)}
 addressed through a (B, M) block table; physical page 0 is the scratch page.
 
 Where the reference rebuilds caches functionally, the port writes them in
 place (``index_put_`` on the caller's tensors): the functional form would
 copy a whole page pool per layer per decode step.  This slice ports the
 direct ``attend`` path; the chunked online-softmax path (taken by the
-reference above 2048 tokens) waits in ROADMAP Q6, sliding windows (the ring
-branch of ``cache_write``) in Q7 and int8 pages (kernel K2) in Q1.
+reference above 2048 tokens) waits in ROADMAP Q6 and sliding windows (the
+ring branch of ``cache_write``) in Q7.
 """
 from __future__ import annotations
 
@@ -26,10 +28,6 @@ from repro_torch.config.model import ModelConfig
 from repro_torch.models.common import normal_init, rope
 
 NEG_INF = -1e30
-
-# int8 pages come with kernel K2 (ROADMAP Q1); only full-precision pools
-# are ported here.
-KV_QUANT_MODES = ("none",)
 
 
 # ----------------------------------------------------------------------------
@@ -160,20 +158,55 @@ def cache_write(cache: dict, k: torch.Tensor, v: torch.Tensor,
 # host-side allocator, physical page 0 is its reserved scratch page)
 # ----------------------------------------------------------------------------
 
+KV_QUANT_MODES = ("none", "int8")
+# Guards the division against all-zero entries (fresh pages, padded rows):
+# the dequantized value is exactly 0 either way, so the floor only avoids
+# 0/0.
+_KV_SCALE_FLOOR = 1e-8
+
+
+def kv_quantize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-(entry, head) int8 quantization over the head dim:
+    ``x (..., N) -> (int8 values (..., N), f32 scales (...))`` with
+    ``scale = max|x| / 127`` floored, round half to even, clip to +-127.
+    The same f32 arithmetic as the reference, so equal inputs give equal
+    bits."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1)
+    scale = torch.clamp(amax / 127.0, min=_KV_SCALE_FLOOR)
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def kv_dequantize(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Inverse of ``kv_quantize``: ``(..., N) int8 x (...) f32 -> (..., N)
+    f32``."""
+    return q.float() * scale[..., None]
+
+
 def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,
                      dtype: torch.dtype, kv_quant: str = "none",
                      device: Optional[torch.device] = None) -> dict:
     """Physical K/V page pool shared by every slot (one per layer).  Entry
-    ``t`` of a row's logical view is live iff ``t < length``."""
-    if kv_quant == "int8":
-        raise NotImplementedError(
-            "kv_quant='int8' needs the quantized paged-attention kernel "
-            "(ROADMAP Q1)")
+    ``t`` of a row's logical view is live iff ``t < length``.
+
+    ``kv_quant="int8"`` stores int8 values with per-(entry, head) f32
+    scales in ``ksc``/``vsc`` (``(P, page, J)``): ``J*(N + 4)`` bytes per
+    entry and tensor.  The scale leaves ride the same page movers as the
+    values (``read_page``/``write_page``), so spill and fault-in carry
+    them."""
     if kv_quant not in KV_QUANT_MODES:
         raise ValueError(f"kv_quant must be one of {KV_QUANT_MODES}, "
                          f"got {kv_quant!r}")
     j, n = cfg.num_kv_heads, cfg.head_dim
     shape = (num_pages, page_size, j, n)
+    if kv_quant == "int8":
+        return {
+            "kp": torch.zeros(shape, dtype=torch.int8, device=device),
+            "vp": torch.zeros(shape, dtype=torch.int8, device=device),
+            "ksc": torch.zeros(shape[:3], dtype=torch.float32, device=device),
+            "vsc": torch.zeros(shape[:3], dtype=torch.float32, device=device),
+        }
     return {"kp": torch.zeros(shape, dtype=dtype, device=device),
             "vp": torch.zeros(shape, dtype=dtype, device=device)}
 
@@ -193,10 +226,20 @@ def paged_cache_write(cache: dict, k: torch.Tensor, v: torch.Tensor,
     logical = torch.clamp(positions // page, max=M - 1)
     phys = table[rows, logical].reshape(-1)               # (B*S,)
     off = (positions % page).reshape(-1)                  # (B*S,)
-    cache["kp"][phys, off] = k.reshape(B * S, *k.shape[2:]).to(
-        cache["kp"].dtype)
-    cache["vp"][phys, off] = v.reshape(B * S, *v.shape[2:]).to(
-        cache["vp"].dtype)
+    kf = k.reshape(B * S, *k.shape[2:])
+    vf = v.reshape(B * S, *v.shape[2:])
+    if "ksc" in cache:
+        # Quantize-on-write: new entries land as int8 values plus their
+        # per-(entry, head) scales, like prefilled pages.
+        kq, ks = kv_quantize(kf)
+        vq, vs = kv_quantize(vf)
+        cache["kp"][phys, off] = kq
+        cache["vp"][phys, off] = vq
+        cache["ksc"][phys, off] = ks
+        cache["vsc"][phys, off] = vs
+        return cache
+    cache["kp"][phys, off] = kf.to(cache["kp"].dtype)
+    cache["vp"][phys, off] = vf.to(cache["vp"].dtype)
     return cache
 
 
@@ -206,10 +249,11 @@ def paged_attend(q: torch.Tensor, cache: dict, positions: torch.Tensor,
     """Single-token decode attention over the page pool.  q (B, 1, J, G, N)
     pre-scaled.
 
-    With ``use_kernel`` it goes through the paged-attention kernel
-    (``kernels/paged_attention``): on the card that launches the CUDA
-    kernel or raises; CPU tensors take its plain version.  Otherwise it
-    runs that plain version (gather + ``attend``) on any device."""
+    With ``use_kernel`` it goes through the paged-attention kernels
+    (``kernels/paged_attention``; the int8 one when the pool carries scale
+    leaves): on the card that launches the CUDA kernel or raises; CPU
+    tensors take its plain version.  Otherwise it runs that plain version
+    (gather, dequantize for int8 pools, ``attend``) on any device."""
     if q.shape[1] != 1:
         raise NotImplementedError(
             "multi-token paged attention (speculative verify) is not ported "
@@ -217,6 +261,11 @@ def paged_attend(q: torch.Tensor, cache: dict, positions: torch.Tensor,
     from repro_torch.kernels.paged_attention import ops as pa_ops
     from repro_torch.kernels.paged_attention import ref as pa_ref
     lengths = positions[:, -1] + 1                        # just wrote up to
+    if "ksc" in cache:
+        fn = (pa_ops.paged_attention_quant if use_kernel
+              else pa_ref.paged_attention_quant_ref)
+        return fn(q[:, 0], cache["kp"], cache["vp"], cache["ksc"],
+                  cache["vsc"], table, lengths, cap=cap)[:, None]
     fn = pa_ops.paged_attention if use_kernel else pa_ref.paged_attention_ref
     return fn(q[:, 0], cache["kp"], cache["vp"], table, lengths,
               cap=cap)[:, None]

@@ -175,15 +175,48 @@ def init_paged_decode_state(cfg: ModelConfig, num_pages: int, page_size: int,
     }
 
 
+def read_page(pstate: Dict[str, Any], page: int) -> Dict[str, Any]:
+    """Copy physical page ``page`` out of every layer's pool, scale leaves
+    included: the spill payload.  The copies are fresh tensors enqueued on
+    the current stream, so they hold the page as it is now whatever later
+    programs write into the pool.  Stacked ("slots") leaves carry the page
+    axis at 1, unstacked ("tail") at 0."""
+    return {"slots": _tree_map(lambda a: a[:, page].clone(), pstate["slots"]),
+            "tail": _tree_map(lambda a: a[page].clone(), pstate["tail"])}
+
+
+def write_page(pstate: Dict[str, Any], page: int, blob: Dict[str, Any]
+               ) -> Dict[str, Any]:
+    """Fault a spilled page's content back into every layer's pool, in
+    place.  ``blob`` is what ``read_page`` returned, on the device or
+    staged to (pinned) host memory; a host copy is enqueued without
+    blocking the caller."""
+    def put(dst_tree, src_tree, axis):
+        for k, dst in dst_tree.items():
+            if isinstance(dst, dict):
+                put(dst, src_tree[k], axis)
+            else:
+                view = dst[:, page] if axis == 1 else dst[page]
+                view.copy_(src_tree[k], non_blocking=True)
+    put(pstate["slots"], blob["slots"], 1)
+    put(pstate["tail"], blob["tail"], 0)
+    return pstate
+
+
 def load_prefix_pages(solo: Dict[str, Any], pstate: Dict[str, Any],
                       table_row: torch.Tensor, hit_len: int
                       ) -> Dict[str, Any]:
     """Seed a fresh batch-1 dense decode state with a reused prefix: gather
     the row's pages from every pool into the solo cache and mark
     ``[0, hit_len)`` valid.  Unassigned logical pages point at the scratch
-    page, so the gathered garbage is masked off by ``pos``."""
-    def seed(dense_leaf, pool_leaf, pool_axis):
-        gathered = torch.index_select(pool_leaf, pool_axis, table_row)
+    page, so the gathered garbage is masked off by ``pos``.  Int8 pools
+    dequantize on the way out (the solo cache is in the model dtype)."""
+    def seed(dense_leaf, pool_cache, key, skey, pool_axis):
+        gathered = torch.index_select(pool_cache[key], pool_axis, table_row)
+        if skey in pool_cache:
+            gathered = attn_mod.kv_dequantize(
+                gathered,
+                torch.index_select(pool_cache[skey], pool_axis, table_row))
         return gathered.reshape(dense_leaf.shape).to(dense_leaf.dtype)
 
     def fix(solo_cache, pool_cache, pool_axis):
@@ -191,8 +224,8 @@ def load_prefix_pages(solo: Dict[str, Any], pstate: Dict[str, Any],
         t = torch.arange(C, dtype=torch.int32, device=table_row.device)
         pos = torch.where(t < hit_len, t, -1)
         return {"cache": {
-            "k": seed(solo_cache["k"], pool_cache["kp"], pool_axis),
-            "v": seed(solo_cache["v"], pool_cache["vp"], pool_axis),
+            "k": seed(solo_cache["k"], pool_cache, "kp", "ksc", pool_axis),
+            "v": seed(solo_cache["v"], pool_cache, "vp", "vsc", pool_axis),
             "pos": pos.expand(solo_cache["pos"].shape).clone()}}
 
     out = dict(solo)
@@ -212,25 +245,32 @@ def scatter_solo_pages(pstate: Dict[str, Any], solo: Dict[str, Any],
     """Admission's device half: scatter a prefilled solo dense cache into
     the pools at the pages ``assign`` maps (logical -> physical; scratch
     page 0 for prefix hits and logical pages past the allocation, so shared
-    pages are never rewritten).  Written in place with ``index_put_``."""
+    pages are never rewritten).  Int8 pools quantize on the way in, values
+    and scales under the same indices.  Written in place with
+    ``index_put_``."""
     M = assign.shape[0]
 
-    def scat(pool_leaf, dense_leaf, pool_axis):
-        page = pool_leaf.shape[pool_axis + 1]
+    def put(pool_leaf, paged, pool_axis):
+        if pool_axis == 1:
+            pool_leaf[:, assign] = paged.to(pool_leaf.dtype)
+        else:
+            pool_leaf[assign] = paged.to(pool_leaf.dtype)
+
+    def scat(pool_cache, dense_leaf, key, skey, pool_axis):
+        page = pool_cache[key].shape[pool_axis + 1]
         lead = tuple(dense_leaf.shape[:pool_axis])           # (reps,) or ()
         paged = dense_leaf.reshape(lead + (M, page)
                                    + tuple(dense_leaf.shape[pool_axis + 2:]))
-        paged = paged.to(pool_leaf.dtype)
-        if pool_axis == 1:
-            pool_leaf[:, assign] = paged
-        else:
-            pool_leaf[assign] = paged
+        if skey in pool_cache:
+            paged, scales = attn_mod.kv_quantize(paged)
+            put(pool_cache[skey], scales, pool_axis)
+        put(pool_cache[key], paged, pool_axis)
 
     for group, axis in (("slots", 1), ("tail", 0)):
         for i in pstate[group]:
             pool, dense = pstate[group][i]["cache"], solo[group][i]["cache"]
-            scat(pool["kp"], dense["k"], axis)
-            scat(pool["vp"], dense["v"], axis)
+            scat(pool, dense["k"], "kp", "ksc", axis)
+            scat(pool, dense["v"], "vp", "vsc", axis)
     return pstate
 
 

@@ -4,13 +4,15 @@ reference's ``serve/backends.py``).
 ``CacheBackend`` is the contract between the admission plane (the engine:
 slots, queue, mirrors, results) and the cache substrate (pool, block
 tables, device programs).  This slice ports ``PagedKVBackend``: refcounted
-pages, block tables and chain-key copy-on-write prefix reuse.  Left for
-later slices, each raising ``NotImplementedError`` naming its ROADMAP item:
-the snapshot backend for recurrent/SWA archs, the cold tier (spill and
-fault-in), handoff export/import and speculative verify.
+pages in the model dtype or int8, block tables, chain-key copy-on-write
+prefix reuse, and LRU spill of cached prefix pages to the ``ColdTier`` with
+fault-in on a later hit.  Left for later slices, each raising
+``NotImplementedError`` naming its ROADMAP item: the snapshot backend for
+recurrent/SWA archs, handoff export/import and speculative verify.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -18,14 +20,43 @@ import torch
 
 from repro_torch.config.model import ModelConfig
 from repro_torch.config.run import ServeConfig
+from repro_torch.models.attention import KV_QUANT_MODES
 from repro_torch.models.transformer import (
     init_paged_decode_state, supports_paging)
 from repro_torch.serve import programs
-from repro_torch.serve.kvpool import SCRATCH_PAGE, KVBlockPool, chain_keys
+from repro_torch.serve.kvpool import (
+    SCRATCH_PAGE, ColdTier, KVBlockPool, chain_keys)
 from repro_torch.serve.scheduler import Request
 
 _NO_HANDOFF = ("KV handoff export/import (disaggregated and cluster serving) "
                "is not ported yet (ROADMAP Q3)")
+
+
+def _flatten(tree: Dict[str, Any]) -> Tuple[Dict[str, Any], List[Any]]:
+    """A nested dict's leaves in a fixed order, and its skeleton (the same
+    dicts, empty ones included, with every leaf replaced by None)."""
+    leaves: List[Any] = []
+
+    def walk(node):
+        out = {}
+        for k, v in node.items():
+            if isinstance(v, dict):
+                out[k] = walk(v)
+            else:
+                out[k] = None
+                leaves.append(v)
+        return out
+    return walk(tree), leaves
+
+
+def _unflatten(skeleton: Dict[str, Any], leaves) -> Dict[str, Any]:
+    """Inverse of ``_flatten``."""
+    it = iter(leaves)
+
+    def walk(node):
+        return {k: walk(v) if isinstance(v, dict) else next(it)
+                for k, v in node.items()}
+    return walk(skeleton)
 
 
 def make_backend(cfg: ModelConfig, scfg: ServeConfig) -> "CacheBackend":
@@ -101,24 +132,18 @@ class CacheBackend:
 
 
 class PagedKVBackend(CacheBackend):
-    """Block-table KV paging: refcounted pages, chain-key CoW prefix reuse.
-    See ``serve.kvpool`` for the host-side allocator."""
+    """Block-table KV paging: refcounted pages, chain-key CoW prefix reuse,
+    tiered spill/fault.  See ``serve.kvpool`` for the host-side allocator
+    and the cold tier."""
 
     def __init__(self, cfg: ModelConfig, scfg: ServeConfig):
         super().__init__(cfg, scfg)
-        if scfg.kv_quant == "int8":
-            raise NotImplementedError(
-                "kv_quant='int8' pages need the quantized paged-attention "
-                "kernel K2 (ROADMAP Q1)")
-        if scfg.kv_quant != "none":
-            raise ValueError(f"kv_quant={scfg.kv_quant!r}: expected 'none'")
-        if scfg.cold_pages > 0:
-            raise NotImplementedError(
-                f"cold_pages={scfg.cold_pages}: the spill/fault-in tier is "
-                "not ported yet (ROADMAP Q2); pass cold_pages=0")
         if scfg.max_seq_len % scfg.page_size:
             raise ValueError(f"max_seq_len ({scfg.max_seq_len}) must be a "
                              f"multiple of page_size ({scfg.page_size})")
+        if scfg.kv_quant not in KV_QUANT_MODES:
+            raise ValueError(f"kv_quant={scfg.kv_quant!r}: expected one of "
+                             f"{KV_QUANT_MODES}")
         self.page_size = scfg.page_size
         self.pages_per_seq = scfg.max_seq_len // scfg.page_size
         num_pages = scfg.num_pages or (scfg.max_batch * self.pages_per_seq + 1)
@@ -128,6 +153,7 @@ class PagedKVBackend(CacheBackend):
                 f"({self.pages_per_seq}) plus the scratch page")
         self.pool = KVBlockPool(num_pages, scfg.page_size,
                                 prefix_cache=scfg.prefix_cache)
+        self.cold = ColdTier(scfg.cold_pages) if scfg.cold_pages > 0 else None
         self._table = np.full((scfg.max_batch, self.pages_per_seq),
                               SCRATCH_PAGE, np.int32)
 
@@ -137,24 +163,95 @@ class PagedKVBackend(CacheBackend):
             self.cfg, eng.policy, self.scfg.max_seq_len)
         self._decode_prog = programs.paged_decode_program(self.cfg,
                                                           eng.policy)
+        # Page movers of the tiered plane: copy a page out for spilling
+        # (fresh tensors, safe to stage on the sidecar) / write a faulted
+        # page back in place.
+        self._read_page_prog = programs.read_page_program()
+        self._write_page_prog = programs.write_page_program()
         eng.states = init_paged_decode_state(
             self.cfg, self.pool.num_pages, self.page_size,
             kv_quant=self.scfg.kv_quant, device=eng.device)
 
+    # -- tiered-memory plane ---------------------------------------------------
+    def _spill(self, page: int, chain: bytes) -> None:
+        """Evict a cached prefix page: copy its K/V (and scales) out of
+        every pool into the cold tier, then let the sidecar stage the
+        copies to host memory (``ColdTier.replace``).  ``alloc`` calls this
+        on the engine thread before it hands the page out, so the copies
+        are enqueued on the stream before any later program rewrites the
+        page; the decode loop never waits for the device->host copy (advice
+        #2), and a failed or dropped staging task leaves the device copies
+        in place — never a dangling entry."""
+        if self.cold is None:
+            return
+        eng = self.engine
+        blob = self._read_page_prog(eng.states, page)
+        self.cold.put(chain, blob)
+        skeleton, leaves = _flatten(blob)
+        eng.executor.submit(
+            f"kv.spill/{chain.hex()[:8]}",
+            functools.partial(self._cold_stage, chain, skeleton), *leaves)
+
+    def _cold_stage(self, chain: bytes, skeleton, *host_leaves) -> None:
+        # Runs on the sidecar once every leaf sits in host memory: the cold
+        # entry becomes true host-tier memory.
+        self.cold.replace(chain, _unflatten(skeleton, host_leaves))
+
+    def _fault_in(self, chain: bytes) -> Optional[int]:
+        """Bring a cold prefix page back into the pool.  Returns the hot
+        page (ref'd for the caller) or None on a miss / full pool."""
+        if self.cold is None or not self.cold.contains(chain):
+            return None
+        blob = self.cold.take(chain)
+        if blob is None:
+            return None
+        got = self.pool.alloc(1, evict_cb=self._spill)
+        if got is None:
+            self.cold.put(chain, blob)          # no room: stay cold
+            return None
+        page = got[0]
+        eng = self.engine
+        self._write_page_prog(eng.states, page, blob)
+        self.pool.register(chain, page)
+        self.pool.note_fault()
+        return page
+
     # -- admission -------------------------------------------------------------
     def _match_prefix(self, req: Request, chains: List[bytes]) -> List[int]:
-        """Longest chain of *full* prompt pages already resident.  Always
-        leaves >= 1 token to prefill so the admit program has a real
-        last-token logit to sample from."""
+        """Longest chain of *full* prompt pages already resident (hot hit)
+        or spilled (cold fault-in).  Always leaves >= 1 token to prefill so
+        the admit program has a real last-token logit to sample from."""
         limit = (len(req.prompt) - 1) // self.page_size
         pages: List[int] = []
         for chain in chains[:limit]:
             # Atomic hit + pin (a lookup()/ref() pair races alloc()).
             page = self.pool.lookup_and_ref(chain)
+            if page is not None:
+                pages.append(page)
+                continue
+            page = self._fault_in(chain)        # alloc() already ref'd it
             if page is None:
                 break
             pages.append(page)
         return pages
+
+    def prepare_probe(self, prompt: np.ndarray) -> List[bytes]:
+        """Per-request probe handle: the prompt's chain keys (``prompt`` a
+        contiguous int32 array)."""
+        return chain_keys(prompt, self.page_size)
+
+    def probe(self, handle) -> Tuple[int, int]:
+        """Leading chain keys resident here (hot index or cold tier),
+        *without* mutating LRU order or hit counters — the cluster
+        router's affinity probe."""
+        n = 0
+        for chain in (handle or []):
+            if self.pool.probe(chain) or \
+                    (self.cold is not None and self.cold.contains(chain)):
+                n += 1
+            else:
+                break
+        return n, n * self.page_size
 
     def _register_prefix(self, req: Request, chains: List[bytes],
                          pages: List[int], n_hit: int) -> None:
@@ -164,12 +261,13 @@ class PagedKVBackend(CacheBackend):
 
     def _reserve_pages(self, req: Request, chains: List[bytes],
                        need: int) -> Optional[Tuple[List[int], int]]:
-        """Prefix-match, allocate the remainder, update hit accounting.
-        Returns ``(pages, n_hit)``, or None when admission must defer — hit
-        refs are rolled back so decode can free pages in the meantime."""
+        """Prefix-match (hot hit or cold fault-in), allocate the remainder
+        (spilling evicted prefix pages), update hit accounting.  Returns
+        ``(pages, n_hit)``, or None when admission must defer — hit refs
+        are rolled back so decode can free pages in the meantime."""
         hit_pages = self._match_prefix(req, chains)
         n_hit = len(hit_pages)
-        new_pages = self.pool.alloc(need - n_hit)
+        new_pages = self.pool.alloc(need - n_hit, evict_cb=self._spill)
         if new_pages is None:
             for p in hit_pages:
                 self.pool.unref(p)
@@ -259,4 +357,5 @@ class PagedKVBackend(CacheBackend):
 
     def stats(self) -> Dict[str, Any]:
         return {"kv_pool": self.pool.stats(),
+                "cold_pages": len(self.cold) if self.cold is not None else 0,
                 "prefix_hit_rate": self._hit_rate()}

@@ -375,14 +375,15 @@ class ContinuousEngine:
             for key, leaf in tree.items():
                 if isinstance(leaf, dict):
                     visit(leaf)
-                elif key in ("k", "v", "kp", "vp"):
+                elif key in ("k", "v", "kp", "vp", "ksc", "vsc"):
                     total += leaf.numel() * leaf.element_size()
         visit(self.states)
         return total
 
     def close(self) -> None:
         """Shut down: fail whatever is still pending with terminal records,
-        then drain the sidecar."""
+        then drain the sidecar (result records and cold-tier staging
+        tasks)."""
         with self._lifecycle:       # wait out any in-flight step first
             if not self._closed.is_set():
                 with self._admission:
@@ -440,6 +441,11 @@ class PagedEngine(ContinuousEngine):
     def pool(self):
         """The backend's cache substrate (``KVBlockPool``)."""
         return self.backend.pool
+
+    @property
+    def cold(self):
+        """The backend's cold tier (``ColdTier``), or None."""
+        return self.backend.cold
 
     def _admit_one(self, req: Request) -> Optional[int]:
         return self.backend.admit(req)

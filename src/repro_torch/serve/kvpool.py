@@ -1,8 +1,8 @@
 """Paged KV-cache bookkeeping: the block allocator and the prefix index.
 
 The port's own copy of the host half of the reference's ``serve/kvpool.py``
-(framework-free; the cold tier and the handoff wire format come with the
-spill and disaggregation slices, ROADMAP Q2 and Q3).
+(framework-free; the handoff wire format comes with the disaggregation
+slice, ROADMAP Q3).
 
   * ``KVBlockPool`` — fixed-size physical pages over the device-resident KV
     pool, refcounted so requests sharing a prompt prefix map the *same*
@@ -11,6 +11,8 @@ spill and disaggregation slices, ROADMAP Q2 and Q3).
     into pages the slot owns exclusively.
   * ``chain_keys`` — rolling content hash per page (each key commits to the
     whole token prefix, not just its own chunk).
+  * ``ColdTier`` — the host-memory tier that evicted prefix pages spill to
+    and fault back from.
 
 Physical page 0 is reserved as a scratch page: device programs point every
 unused/retired block-table entry at it, so released decode rows and padded
@@ -265,3 +267,65 @@ class KVBlockPool:
                 "alloc_failures": self.alloc_failures,
                 "unref_underflows": self.unref_underflows,
             }
+
+
+class ColdTier:
+    """Host-memory tier for spilled KV pages (paper advice #3).
+
+    The engine inserts a spilled page's blob *synchronously* (fresh device
+    copies), then the sidecar executor stages it to host memory and
+    ``replace``s the entry in place — so a prefix hit racing an in-flight
+    spill always finds the blob, and a failed/dropped staging task degrades
+    to keeping the device copies (never a dangling wait).  Capacity is
+    counted in pages; over capacity the LRU entry is dropped (a lost cold
+    prefix is just a future recompute)."""
+
+    def __init__(self, capacity_pages: int = 256):
+        self.capacity = capacity_pages
+        self._lock = make_lock("ColdTier._lock")
+        self._store: "OrderedDict[bytes, Any]" = OrderedDict()  # guarded-by: _lock
+        self.dropped = 0        # guarded-by: _lock
+        self.rejected = 0       # guarded-by: _lock
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._store)
+
+    def put(self, chain: bytes, blob: Any) -> None:
+        with self._lock:
+            if self.capacity <= 0:
+                # A zero-capacity tier accepts nothing: inserting and then
+                # immediately dropping the same entry would skew ``dropped``
+                # (which counts entries that lost an LRU race).
+                self.rejected += 1
+                return
+            self._store[chain] = blob
+            self._store.move_to_end(chain)
+            # capacity >= 1 and the new entry sits at the MRU end, so the
+            # LRU pop below can never evict the entry just inserted.
+            while len(self._store) > self.capacity:
+                self._store.popitem(last=False)
+                self.dropped += 1
+
+    def replace(self, chain: bytes, blob: Any) -> None:
+        """Swap an entry's payload (device copies -> host-staged tensors)
+        without bumping LRU order; a no-op if the entry was dropped or
+        faulted back meanwhile."""
+        with self._lock:
+            if chain in self._store:
+                self._store[chain] = blob
+
+    def take(self, chain: bytes) -> Optional[Any]:
+        """Pop a blob (it is moving back to the hot tier); None on miss."""
+        with self._lock:
+            return self._store.pop(chain, None)
+
+    def contains(self, chain: bytes) -> bool:
+        with self._lock:
+            return chain in self._store
+
+    def blobs(self) -> List[Any]:
+        """The payloads held now, LRU first (for checks that every entry
+        reached host memory)."""
+        with self._lock:
+            return list(self._store.values())

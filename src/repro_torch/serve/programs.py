@@ -1,6 +1,6 @@
 """Device programs for the serve fast path (counterpart of the reference's
 ``serve/programs.py``): bucket admit + batched decode, each in a dense and
-a paged (block-table) variant.
+a paged (block-table) variant, and the page movers of the cold tier.
 
 The reference jits each program once and shares the compilation; here each
 is a plain callable, run eagerly, built once per engine.  Programs update
@@ -16,7 +16,8 @@ import torch
 
 from repro_torch.config.model import ModelConfig
 from repro_torch.models.transformer import (
-    ExecPolicy, init_decode_state, insert_decode_slot, scatter_solo_pages)
+    ExecPolicy, init_decode_state, insert_decode_slot, read_page,
+    scatter_solo_pages, write_page)
 from repro_torch.serve.sampler import sample_slots
 from repro_torch.train.steps import (
     make_bucket_prefill_step, make_decode_step, make_paged_decode_step,
@@ -113,3 +114,14 @@ def paged_decode_program(cfg: ModelConfig, policy: ExecPolicy):
         mirrors["pos"] += 1
         return toks
     return step
+
+
+def read_page_program():
+    """Spill: copy one physical page out of every pool (fresh tensors,
+    safe to hand to the sidecar while the pool keeps being written)."""
+    return read_page
+
+
+def write_page_program():
+    """Fault-in: write a spilled page back into every pool, in place."""
+    return write_page

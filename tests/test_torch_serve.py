@@ -3,9 +3,9 @@ invariants, on the CPU.
 
 The reference's ``PagedEngine`` and the port's serve the same prompts with
 the same (converted) ``repro-tiny`` parameters: greedy tokens must be
-identical.  The reference runs with its default cold tier; the port, which
-has none yet, with ``cold_pages=0`` — the pool never runs short here, so
-the tier is never used.
+identical.  Both run with their default cold tier, which the pool here
+never runs short enough to use (``tests/test_torch_kv_quant.py`` drives
+spill and fault-in).
 """
 import dataclasses
 
@@ -44,7 +44,7 @@ def tiny():
 
 
 def _scfg(**kw):
-    return ServeConfig(**dict(SCFG, cold_pages=0, **kw))
+    return ServeConfig(**dict(SCFG, **kw))
 
 
 def _prompts(vocab, seed=7):
@@ -109,10 +109,8 @@ def test_submit_after_close_raises(tiny):
 
 def test_slice_boundaries_raise_not_implemented(tiny):
     _, _, cfg, model = tiny
-    for kw in (dict(cold_pages=4), dict(kv_quant="int8"),
-               dict(speculative=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            PagedEngine(cfg, model, dataclasses.replace(_scfg(), **kw))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        PagedEngine(cfg, model, dataclasses.replace(_scfg(), speculative=True))
     for mode in ("cluster", "disaggregated", "fixed"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             make_engine(cfg, model, _scfg(engine_mode=mode))
